@@ -4,10 +4,10 @@
 import numpy as np
 import jax.numpy as jnp
 
-from flowonthego_tpu.config import DISConfig
-from flowonthego_tpu.ops.densify import densify
-from flowonthego_tpu.ops.dis import PatchState, init_state
-from flowonthego_tpu.ops.patches import PatchGrid
+from flowonthego.config import DISConfig
+from flowonthego.ops.densify import densify
+from flowonthego.ops.dis import PatchState, init_state
+from flowonthego.ops.patches import PatchGrid
 
 
 def naive_densify(grid, cost_px, p_cur, min_errval):

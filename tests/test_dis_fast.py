@@ -7,7 +7,7 @@ restructuring in ops/dis.py::optimize is exact up to float re-association.
 import numpy as np
 import jax.numpy as jnp
 
-from flowonthego_tpu.config import DISConfig
+from flowonthego.config import DISConfig
 
 
 def _jit_optimize(state, I1, grid, cfg):
@@ -18,9 +18,9 @@ def _jit_optimize(state, I1, grid, cfg):
     return jax.jit(lambda st, im: dis_mod.optimize(st, im, grid, cfg))(
         state, I1)
 
-from flowonthego_tpu.ops import dis as dis_mod
-from flowonthego_tpu.ops.patches import PatchGrid, extract_templates_and_hessians
-from flowonthego_tpu.ops.pyramid import pad_replicate, pad_constant, central_diff
+from flowonthego.ops import dis as dis_mod
+from flowonthego.ops.patches import PatchGrid, extract_templates_and_hessians
+from flowonthego.ops.pyramid import pad_replicate, pad_constant, central_diff
 
 
 def _setup(img0, img1, cfg):

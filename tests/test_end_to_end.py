@@ -9,8 +9,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from flowonthego_tpu import DISConfig, compute_flow, average_epe
-from flowonthego_tpu.models.dis_flow import dis_flow_padded_jit
+from flowonthego import DISConfig, compute_flow, average_epe
+from flowonthego.models.dis_flow import dis_flow_padded_jit
 
 
 def test_synthetic_translation_full_pipeline(rng):

@@ -3,11 +3,11 @@
 import numpy as np
 import jax.numpy as jnp
 
-from flowonthego_tpu.config import DISConfig
-from flowonthego_tpu.ops.densify import densify, _fb_merge_scatter
-from flowonthego_tpu.ops.dis import PatchState
-from flowonthego_tpu.ops.patches import PatchGrid
-from flowonthego_tpu.models.dis_flow import dis_flow_padded_jit
+from flowonthego.config import DISConfig
+from flowonthego.ops.densify import densify, _fb_merge_scatter
+from flowonthego.ops.dis import PatchState
+from flowonthego.ops.patches import PatchGrid
+from flowonthego.models.dis_flow import dis_flow_padded_jit
 
 
 def _state(grid, cost_px, p_cur):

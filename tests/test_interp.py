@@ -3,8 +3,9 @@
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
-from flowonthego_tpu.ops.interp import sample_patches_bilinear
+from flowonthego.ops.interp import sample_patches_bilinear
 
 
 def bilinear_oracle(img_pad, mx, my, ps, padding):
@@ -53,21 +54,26 @@ def test_integer_midpoint_is_direct_window(rng):
     np.testing.assert_array_equal(out[0, 0], ref)
 
 
-def test_matmul_gather_matches_dynamic_slice(rng):
-    """The one-hot MXU gather must agree with vmapped dynamic_slice
-    bit-for-bit, including the clamp at out-of-range starts."""
-    import jax
-    from flowonthego_tpu.ops.interp import gather_windows_matmul
-
-    K = 9
-    img_pad = jnp.asarray(rng.standard_normal((30, 26, 3)).astype(np.float32))
-    Hp, Wp, C = img_pad.shape
-    # In-range, edge, and out-of-range starts (negative and beyond).
-    sy = jnp.asarray([0, 5, Hp - K, -3, Hp + 4, 12], jnp.int32)
-    sx = jnp.asarray([0, 7, Wp - K, Wp + 2, -1, 3], jnp.int32)
-    got = np.asarray(gather_windows_matmul(img_pad, sy, sx, K))
-
-    def one(sy_, sx_):
-        return jax.lax.dynamic_slice(img_pad, (sy_, sx_, 0), (K, K, C))
-    ref = np.asarray(jax.vmap(one)(sy, sx))
-    np.testing.assert_array_equal(got, ref)
+@pytest.mark.parametrize("mid", [(-9.5, 2.25), (40.75, 33.5)])
+def test_window_gather_clamps_at_borders(rng, mid):
+    """Windows whose start leaves the padded image follow lax.dynamic_slice
+    semantics — a negative start wraps once, then the start is clamped to
+    keep the window inside (the GN kernel reproduces exactly this); the
+    bilinear fractions stay those of the unclamped midpoint."""
+    from flowonthego.ops.interp import gather_windows
+    ps, pad = 8, 8
+    img_pad = rng.standard_normal((30, 26, 3)).astype(np.float32)
+    Hp, Wp, _ = img_pad.shape
+    K = ps + 1
+    mx = np.array([[mid[0]]], np.float32)
+    my = np.array([[mid[1]]], np.float32)
+    win, rx, ry = gather_windows(jnp.asarray(img_pad), jnp.asarray(mx),
+                                 jnp.asarray(my), ps, pad)
+    sy = int(np.floor(mid[1]) + pad - ps // 2)
+    sx = int(np.floor(mid[0]) + pad - ps // 2)
+    sy = int(np.clip(sy + Hp if sy < 0 else sy, 0, Hp - K))
+    sx = int(np.clip(sx + Wp if sx < 0 else sx, 0, Wp - K))
+    np.testing.assert_array_equal(np.asarray(win)[0, 0],
+                                  img_pad[sy:sy + K, sx:sx + K])
+    np.testing.assert_allclose(float(rx[0, 0]), mid[0] - np.floor(mid[0]))
+    np.testing.assert_allclose(float(ry[0, 0]), mid[1] - np.floor(mid[1]))

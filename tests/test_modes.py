@@ -8,12 +8,12 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from flowonthego_tpu.config import DISConfig
-from flowonthego_tpu.ops.channels import (prepare_input, to_grayscale,
-                                          to_gradient_magnitude)
-from flowonthego_tpu.ops.variational import variational_refine
-from flowonthego_tpu.models.dis_flow import dis_flow_padded_jit
-from flowonthego_tpu.models.stereo import stereo_disparity_padded
+from flowonthego.config import DISConfig
+from flowonthego.ops.channels import (prepare_input, to_grayscale,
+                                      to_gradient_magnitude)
+from flowonthego.ops.variational import variational_refine
+from flowonthego.models.dis_flow import dis_flow_padded_jit
+from flowonthego.models.stereo import stereo_disparity_padded
 
 
 def _smooth(rng, h, w):

@@ -4,7 +4,7 @@ The claim under test: N warm-started streams sharded over 'data' produce
 EXACTLY the flows of N sequential single-device stream_flow runs — the
 pipeline is per-stream local (zero collectives), so sharding must not
 change the numbers beyond vmap's fp-reassociation noise (measured 0 on
-CPU; a loose cap guards TPU reductions).
+CPU; a loose cap guards device reductions).
 """
 
 import numpy as np
@@ -12,11 +12,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from flowonthego_tpu.config import DISConfig
-from flowonthego_tpu.parallel import make_mesh
-from flowonthego_tpu.parallel.frame_parallel import stream_flow
-from flowonthego_tpu.parallel.multistream import (MultiStream,
-                                                  stream_video_chunks)
+from flowonthego.config import DISConfig
+from flowonthego.parallel import make_mesh
+from flowonthego.parallel.frame_parallel import stream_flow
+from flowonthego.parallel.multistream import (MultiStream,
+                                              stream_video_chunks)
 
 pytestmark = pytest.mark.skipif(len(jax.devices()) < 8,
                                 reason="needs 8 (virtual) devices")
@@ -107,3 +107,19 @@ def test_chunked_video_matches_per_chunk_streams(rng):
         for i, w in enumerate(want):
             np.testing.assert_allclose(got[lo + i], w, atol=5e-5,
                                        err_msg=f"chunk {k} pair {lo + i}")
+
+
+def test_multistream_packs_several_streams_per_device(rng):
+    """n_streams a multiple of the 'data' axis: 4 streams on a 2-device
+    mesh, each equal to its own sequential stream_flow run."""
+    seqs = _sequences(rng, 4)
+    mesh = make_mesh(n_data=2, n_space=1, devices=jax.devices()[:2])
+    ms = MultiStream(mesh, CFG, H, W, n_streams=4)
+    ms.start(seqs[:, 0])
+    got = [np.asarray(ms.push(seqs[:, t])) for t in range(1, T)]
+    for b in range(4):
+        for t, want in enumerate(stream_flow(iter(seqs[b]), CFG)):
+            np.testing.assert_allclose(got[t][b], want, rtol=1e-4,
+                                       atol=1e-4)
+    with pytest.raises(ValueError, match="multiple"):
+        MultiStream(mesh, CFG, H, W, n_streams=3)

@@ -4,10 +4,10 @@
 import numpy as np
 import jax.numpy as jnp
 
-from flowonthego_tpu.config import DISConfig
-from flowonthego_tpu.ops.patches import (PatchGrid, extract_windows,
-                                         extract_templates_and_hessians)
-from flowonthego_tpu.ops.pyramid import pad_replicate, pad_constant, central_diff
+from flowonthego.config import DISConfig
+from flowonthego.ops.patches import (PatchGrid, extract_windows,
+                                     extract_templates_and_hessians)
+from flowonthego.ops.pyramid import pad_replicate, pad_constant, central_diff
 
 
 def test_grid_geometry_reference_values():

@@ -1,6 +1,6 @@
 """Full-sequence accuracy parity vs the locally built reference CPU oracle.
 
-Builds the reference CPU baseline (/root/reference/kroeger, OF_DIS) via
+Builds the reference CPU baseline ($FLOWONTHEGO_REFERENCE/kroeger, OF_DIS) via
 tools/kroeger_oracle/build.sh (minimal Eigen shim; nothing copied into this
 repo) and asserts the BASELINE.md accuracy bound as a tested property
 instead of a comment:
@@ -23,18 +23,20 @@ import numpy as np
 import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-REF_IMAGES = "/root/reference/images/alley_1"
-ORACLE_BUILD = os.environ.get("KROEGER_ORACLE_DIR", "/tmp/kroeger_oracle")
-
-pytestmark = pytest.mark.skipif(
-    shutil.which("g++") is None or shutil.which("pkg-config") is None
-    or subprocess.run(["pkg-config", "--exists", "opencv4"]).returncode != 0
-    or not os.path.isdir("/root/reference/kroeger"),
-    reason="reference CPU oracle not buildable here")
-
+# A checkout of the upstream FlowOnTheGo repository (images, kroeger/).
+REFERENCE = os.environ.get("FLOWONTHEGO_REFERENCE", "")
+REF_IMAGES = os.path.join(REFERENCE, "images/alley_1")
+ORACLE_BUILD = os.environ.get("KROEGER_ORACLE_DIR",
+                              os.path.join(REPO, "build", "kroeger_oracle"))
 
 @pytest.fixture(scope="module")
 def oracle_binary():
+    if (shutil.which("g++") is None or shutil.which("pkg-config") is None
+            or subprocess.run(["pkg-config", "--exists",
+                               "opencv4"]).returncode != 0
+            or not os.path.isdir(os.path.join(REFERENCE, "kroeger"))):
+        pytest.skip("reference CPU oracle not buildable here (needs g++, "
+                    "OpenCV and $FLOWONTHEGO_REFERENCE)")
     binary = os.path.join(ORACLE_BUILD, "run_OF_RGB")
     if not os.path.exists(binary):
         subprocess.run(
@@ -50,27 +52,28 @@ def _oracle_flow(binary, i):
             [binary, f"{REF_IMAGES}/frame_{i:04d}.png",
              f"{REF_IMAGES}/frame_{i + 1:04d}.png", out, "2"],
             check=True, capture_output=True)
-    from flowonthego_tpu.io.flo import read_flo
+    from flowonthego.io.flo import read_flo
     return read_flo(out)
 
 
 def test_oracle_matches_bundled_flow(oracle_binary):
     """The freshly built oracle reproduces the bundled 2017 result up to
     OpenCV-version numerics drift — validates the Eigen-shim build."""
-    from flowonthego_tpu.io.flo import read_flo
-    from flowonthego_tpu.utils.metrics import average_epe
+    from flowonthego.io.flo import read_flo
+    from flowonthego.utils.metrics import average_epe
     oracle = _oracle_flow(oracle_binary, 1)
-    bundled = read_flo("/root/reference/kroeger/flows/alley_0001.flo")
+    bundled = read_flo(os.path.join(REFERENCE,
+                                 "kroeger/flows/alley_0001.flo"))
     assert average_epe(oracle, bundled) < 0.1
 
 
 @pytest.mark.slow
 def test_sequence_parity(oracle_binary):
     """EPE band + 2%-of-reference warp-error bound on sampled frames."""
-    from flowonthego_tpu.config import operating_point
-    from flowonthego_tpu.io.images import load_image
-    from flowonthego_tpu.models.dis_flow import compute_flow
-    from flowonthego_tpu.utils.metrics import average_epe
+    from flowonthego.config import operating_point
+    from flowonthego.io.images import load_image
+    from flowonthego.models.dis_flow import compute_flow
+    from flowonthego.utils.metrics import average_epe
     import sys
     sys.path.insert(0, os.path.join(REPO, "tools"))
     from reference_parity import warp_error

@@ -10,8 +10,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from flowonthego_tpu.ops.resize import (resize_full, resize_matmul,
-                                        resize_rows_strip)
+from flowonthego.ops.resize import (resize_full, resize_matmul,
+                                    resize_rows_strip)
 
 
 @pytest.mark.parametrize("shape,out", [

@@ -12,11 +12,11 @@ import pytest
 from jax import shard_map
 from jax.sharding import PartitionSpec as P
 
-from flowonthego_tpu.config import DISConfig
-from flowonthego_tpu.models.dis_flow import dis_flow_padded, upsample_flow_to_full
-from flowonthego_tpu.parallel import (make_mesh, make_data_parallel_flow,
-                                      make_spatial_flow)
-from flowonthego_tpu.parallel.halo import exchange_rows, exchange_accumulate_rows
+from flowonthego.config import DISConfig
+from flowonthego.models.dis_flow import dis_flow_padded, upsample_flow_to_full
+from flowonthego.parallel import (make_mesh, make_data_parallel_flow,
+                                  make_spatial_flow)
+from flowonthego.parallel.halo import exchange_rows, exchange_accumulate_rows
 
 pytestmark = pytest.mark.skipif(len(jax.devices()) < 8,
                                 reason="needs 8 (virtual) devices")

@@ -10,14 +10,14 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from flowonthego_tpu.config import DISConfig
-from flowonthego_tpu.models.dis_flow import (dis_flow_padded,
-                                             flow_full_padded,
-                                             upsample_flow_to_full)
-from flowonthego_tpu.parallel import make_mesh
-from flowonthego_tpu.parallel.spatial_fine import (make_fine_spatial_flow,
-                                                   sharded_scale_levels,
-                                                   displacement_bound)
+from flowonthego.config import DISConfig
+from flowonthego.models.dis_flow import (dis_flow_padded,
+                                         flow_full_padded,
+                                         upsample_flow_to_full)
+from flowonthego.parallel import make_mesh
+from flowonthego.parallel.spatial_fine import (make_fine_spatial_flow,
+                                               sharded_scale_levels,
+                                               displacement_bound)
 
 pytestmark = pytest.mark.skipif(len(jax.devices()) < 4,
                                 reason="needs 4 (virtual) devices")
@@ -123,7 +123,7 @@ def test_fine_sharded_fb_with_varref(rng):
 
 def test_halo_large_motion_within_budget(rng):
     """Motion near the halo budget: sharded == unsharded and the runtime
-    halo detector reports zero violations (VERDICT round-1 weak #4)."""
+    halo detector reports zero violations."""
     cfg = DISConfig(patch_size=8, patch_stride=0.4, coarsest_scale=2,
                     finest_scale=1, grad_descent_iter=8, use_var_ref=True)
     mesh = make_mesh(n_data=1, n_space=4, devices=jax.devices()[:4])
@@ -144,7 +144,7 @@ def test_halo_large_motion_within_budget(rng):
 def test_halo_exceeded_is_detected(rng, monkeypatch):
     """Starve the halo (displacement bound forced to ~0): sampling clamps,
     and the runtime detector reports it instead of silently diverging."""
-    import flowonthego_tpu.parallel.spatial_fine as sf
+    import flowonthego.parallel.spatial_fine as sf
     monkeypatch.setattr(sf, "displacement_bound", lambda cfg, sl: 0.0)
     cfg = DISConfig(patch_size=8, patch_stride=0.4, coarsest_scale=2,
                     finest_scale=1, grad_descent_iter=8, use_var_ref=False)
@@ -179,11 +179,11 @@ def test_fine_sharded_finest_zero(rng):
 
 
 def test_halo_exceeded_recovers_to_unsharded(rng):
-    """Recovery, not just detection (VERDICT round-4 weak #5): a starved
+    """Recovery, not just detection: a starved
     halo (slack forced negative) trips the certificate, and the
     recovering wrapper re-runs the frame on the replicated path — the
     caller gets the unsharded result, never silently clamped flow."""
-    from flowonthego_tpu.parallel.spatial_fine import \
+    from flowonthego.parallel.spatial_fine import \
         make_fine_spatial_flow_recovering
     cfg = DISConfig(patch_size=8, patch_stride=0.4, coarsest_scale=2,
                     finest_scale=1, grad_descent_iter=8, use_var_ref=False)

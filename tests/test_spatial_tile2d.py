@@ -2,7 +2,7 @@
 
 Covers SURVEY.md §2.4's "spatial/model axis over image tiles" for the
 FULL DIS core (extraction, warm start, optimization, densification fold,
-tiled var-ref) — the round-3 gap where only var-ref had a 2-D form.
+tiled var-ref).
 """
 
 import dataclasses
@@ -13,11 +13,11 @@ import numpy as np
 import pytest
 from scipy.ndimage import gaussian_filter
 
-from flowonthego_tpu.config import DISConfig
-from flowonthego_tpu.models.dis_flow import flow_full_padded
-from flowonthego_tpu.parallel.spatial_tile2d import (make_tile2d_flow,
-                                                     make_tile_mesh,
-                                                     tiled2d_scale_levels)
+from flowonthego.config import DISConfig
+from flowonthego.models.dis_flow import flow_full_padded
+from flowonthego.parallel.spatial_tile2d import (make_tile2d_flow,
+                                                 make_tile_mesh,
+                                                 tiled2d_scale_levels)
 
 
 def _smooth_pair(rng, H, W, dy=3, dx=2):

@@ -13,9 +13,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from flowonthego_tpu.config import DISConfig
-from flowonthego_tpu.models.dis_flow import (dis_flow_padded,
-                                             upsample_flow_to_full)
+from flowonthego.config import DISConfig
+from flowonthego.models.dis_flow import (dis_flow_padded,
+                                         upsample_flow_to_full)
 
 # one traced program per (init None / init array) x full_res instead of
 # hundreds of eager op dispatches per pair (see flow_full_padded)
@@ -33,7 +33,7 @@ def _pair_step(I0, I1, cfg, init, full_res):
         flow / (2.0 ** (cfg.coarsest_scale + 1 - cfg.finest_scale)),
         (init_h, init_w, 2), method="linear")
     return out, nxt
-from flowonthego_tpu.parallel.frame_parallel import stream_flow
+from flowonthego.parallel.frame_parallel import stream_flow
 
 CFG = DISConfig(coarsest_scale=3, finest_scale=1, grad_descent_iter=4,
                 use_var_ref=True)
@@ -100,3 +100,14 @@ def test_stream_flow_accuracy_on_known_motion():
         epe = np.hypot(out[m][..., 0] - 1.0,
                        out[m][..., 1] - 2.0).mean()
         assert epe < 0.35, f"pair {k}: EPE {epe:.3f}"
+
+
+def test_stream_uint8_frames_match_their_float_cast(rng):
+    """uint8 frames stay uint8 up to the device (the first pool upcasts
+    them); 0..255 integers are exact in float32, so the flows equal those
+    of the same frames cast to float32."""
+    seq = (rng.random((3, 32, 64, 3)) * 255).astype(np.uint8)
+    got = list(stream_flow(iter(seq), CFG))
+    want = list(stream_flow(iter(seq.astype(np.float32)), CFG))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-5)

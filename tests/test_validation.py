@@ -8,10 +8,10 @@ run_dense.cpp:137-151; the library API deserves the same property.)
 import numpy as np
 import pytest
 
-from flowonthego_tpu.config import DISConfig
-from flowonthego_tpu.models.dis_flow import compute_flow, validate_image_pair
-from flowonthego_tpu.models.stereo import compute_disparity
-from flowonthego_tpu.parallel.frame_parallel import stream_flow
+from flowonthego.config import DISConfig
+from flowonthego.models.dis_flow import compute_flow, validate_image_pair
+from flowonthego.models.stereo import compute_disparity
+from flowonthego.parallel.frame_parallel import stream_flow
 
 CFG = DISConfig(coarsest_scale=3, finest_scale=1, grad_descent_iter=2,
                 use_var_ref=False)

@@ -3,9 +3,10 @@
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
-from flowonthego_tpu.config import DISConfig
-from flowonthego_tpu.ops import variational as var
+from flowonthego.config import DISConfig
+from flowonthego.ops import variational as var
 
 
 def test_deriv5_matches_stencil(rng):
@@ -172,50 +173,110 @@ def test_refine_pulls_flow_toward_truth(rng):
     assert err_after < 0.5 * err_before
 
 
-def test_warp_onehot_matches_gather(rng):
-    """The gather-free one-hot warp (TPU hot path) == the corner-gather
-    form, up to fp reordering (same taps, different association)."""
-    from flowonthego_tpu.ops.variational import warp_image
-    for h, w in [(17, 23), (34, 60)]:
-        src = jnp.asarray(rng.random((h, w, 3), np.float32) * 255.0)
-        wx = jnp.asarray(rng.standard_normal((h, w)).astype(np.float32) * 4)
-        wy = jnp.asarray(rng.standard_normal((h, w)).astype(np.float32) * 4)
-        ref_w, ref_m = warp_image(src, wx, wy, force_onehot=False)
-        got_w, got_m = warp_image(src, wx, wy, force_onehot=True)
-        np.testing.assert_array_equal(np.asarray(got_m), np.asarray(ref_m))
-        np.testing.assert_allclose(np.asarray(got_w), np.asarray(ref_w),
-                                   rtol=2e-6, atol=1e-3)
-        # integer flow: every tap is exact in both forms -> bit equal
-        wxi = jnp.round(wx)
-        wyi = jnp.round(wy)
-        ref_w, _ = warp_image(src, wxi, wyi, force_onehot=False)
-        got_w, _ = warp_image(src, wxi, wyi, force_onehot=True)
-        np.testing.assert_array_equal(np.asarray(got_w), np.asarray(ref_w))
+def _warp_oracle(src, wx, wy):
+    """kernelWarpImage per pixel: bilinear with each tap clamped to the
+    image, and a mask of samples whose position lies inside it."""
+    h, w, C = src.shape
+    out = np.zeros_like(src, dtype=np.float64)
+    mask = np.zeros((h, w))
+    for j in range(h):
+        for i in range(w):
+            x, y = i + wx[j, i], j + wy[j, i]
+            mask[j, i] = (0 <= x < w) and (0 <= y < h)
+            x0, y0 = np.floor(x), np.floor(y)
+            dx, dy = x - x0, y - y0
+            xs = [int(np.clip(x0, 0, w - 1)), int(np.clip(x0 + 1, 0, w - 1))]
+            ys = [int(np.clip(y0, 0, h - 1)), int(np.clip(y0 + 1, 0, h - 1))]
+            out[j, i] = (src[ys[0], xs[0]] * (1 - dx) * (1 - dy)
+                         + src[ys[0], xs[1]] * dx * (1 - dy)
+                         + src[ys[1], xs[0]] * (1 - dx) * dy
+                         + src[ys[1], xs[1]] * dx * dy)
+    return out, mask
 
 
-def test_warp_banded_matches_gather(rng):
-    """Banded Pallas warp == the 4-corner gather warp for bounded flows
-    (the var-ref precondition: |flow| <= outlier_thresh), including
-    border clamping and ragged row tiles."""
-    from flowonthego_tpu.ops.pallas.warp import warp_image_banded
-    from flowonthego_tpu.ops.variational import warp_image
-    for h, w, bound in ((60, 96, 6.0), (37, 64, 4.0)):
-        src = jnp.asarray(rng.random((h, w, 3)).astype(np.float32) * 255)
-        wx = jnp.asarray(((rng.random((h, w)) * 2 - 1) * bound)
-                         .astype(np.float32))
-        wy = jnp.asarray(((rng.random((h, w)) * 2 - 1) * bound)
-                         .astype(np.float32))
-        ref_w, ref_m = warp_image(src, wx, wy, force_onehot=False)
-        got_w, got_m = warp_image_banded(src, wx, wy, bound, tile_rows=32,
-                                         interpret=True)
-        np.testing.assert_array_equal(np.asarray(got_m), np.asarray(ref_m))
-        # rows-then-cols association vs the 4-term corner sum: <=1-2 ulp
-        np.testing.assert_allclose(np.asarray(got_w), np.asarray(ref_w),
-                                   rtol=0, atol=1e-3)
-        # integer flows must be exact (single-tap selects)
-        wxi = jnp.round(wx)
-        wyi = jnp.round(wy)
-        ref_i, _ = warp_image(src, wxi, wyi, force_onehot=False)
-        got_i, _ = warp_image_banded(src, wxi, wyi, bound, tile_rows=32,
-                                     interpret=True)
-        np.testing.assert_array_equal(np.asarray(got_i), np.asarray(ref_i))
+@pytest.mark.parametrize("shift", [(-3.3, -2.7), (2.6, 3.2), (0.0, 0.0)])
+def test_warp_gather_matches_oracle_at_borders(rng, shift):
+    """The gather warp == the per-pixel oracle, including samples that
+    leave the image on every side (clamped taps, zero mask)."""
+    h, w = 9, 11
+    src = rng.random((h, w, 3)).astype(np.float32) * 255
+    wx = (shift[0] + rng.standard_normal((h, w)) * 2).astype(np.float32)
+    wy = (shift[1] + rng.standard_normal((h, w)) * 2).astype(np.float32)
+    got, mask = var.warp_image(jnp.asarray(src), jnp.asarray(wx),
+                               jnp.asarray(wy))
+    ref, ref_mask = _warp_oracle(src, wx, wy)
+    np.testing.assert_array_equal(np.asarray(mask), ref_mask)
+    np.testing.assert_allclose(np.asarray(got), ref, rtol=1e-5, atol=1e-3)
+
+
+def _sor_oracle(du, dv, a11, a12, a22, b1, b2, s_h, s_v, iters, omega):
+    """Red-black SOR (cu::sor, flowUtil.cu:651-706) as sequential
+    per-pixel loops: odd cells, then even cells, each cell updating du
+    then dv from the freshly written du."""
+    du = du.astype(np.float64).copy()
+    dv = dv.astype(np.float64).copy()
+    h, w = du.shape
+
+    def at(x, j, i):
+        return x[j, i] if 0 <= j < h and 0 <= i < w else 0.0
+
+    for _ in range(iters):
+        for parity in (1, 0):
+            for j in range(h):
+                for i in range(w):
+                    if (i + j) % 2 != parity:
+                        continue
+                    sv_up, sh_l = at(s_v, j - 1, i), at(s_h, j, i - 1)
+                    A = sv_up + sh_l + s_v[j, i] + s_h[j, i]
+                    nu = (sv_up * at(du, j - 1, i) + sh_l * at(du, j, i - 1)
+                          + s_v[j, i] * at(du, j + 1, i)
+                          + s_h[j, i] * at(du, j, i + 1))
+                    nv = (sv_up * at(dv, j - 1, i) + sh_l * at(dv, j, i - 1)
+                          + s_v[j, i] * at(dv, j + 1, i)
+                          + s_h[j, i] * at(dv, j, i + 1))
+                    du[j, i] = ((1 - omega) * du[j, i] + omega / (a11[j, i] + A)
+                                * (b1[j, i] + nu - a12[j, i] * dv[j, i]))
+                    dv[j, i] = ((1 - omega) * dv[j, i] + omega / (a22[j, i] + A)
+                                * (b2[j, i] + nv - a12[j, i] * du[j, i]))
+    return du, dv
+
+
+@pytest.mark.parametrize("level", [0, 1, 2, 3])
+def test_varref_matches_sequential_sor_oracle(rng, level):
+    """variational_refine (red-black sweeps as checkerboard-masked
+    stencils) == the same fixed-point iterations with the SOR solved by
+    sequential per-pixel loops, at inner-iteration counts level + 1."""
+    from scipy.ndimage import gaussian_filter
+    h, w = 12, 16
+    base = gaussian_filter(rng.standard_normal((h + 8, w + 8, 3)),
+                           sigma=(2, 2, 0)).astype(np.float32) * 120 + 128
+    im1 = jnp.asarray(base[4:4 + h, 4:4 + w])
+    im2 = jnp.asarray(base[4:4 + h, 3:3 + w])
+    flow = jnp.asarray(0.3 * rng.standard_normal((h, w, 2)).astype(
+        np.float32) + np.array([1.0, 0.0], np.float32))
+    cfg = DISConfig()
+    got = np.asarray(var.variational_refine(flow, im1, im2, cfg, level))
+
+    qa = 0.25 * cfg.var_ref_alpha
+    hd3 = cfg.var_ref_delta * 0.5 / 3.0
+    hg3 = cfg.var_ref_gamma * 0.5 / 3.0
+    wx, wy = flow[..., 0], flow[..., 1]
+    w_im2, mask = var.warp_image(im2, wx, wy)
+    d = var.get_derivatives(im1, w_im2)
+    du = np.zeros((h, w))
+    dv = np.zeros((h, w))
+    uu, vv = wx, wy
+    for _ in range(level + 1):
+        s_h, s_v = var.compute_smoothness(uu, vv, qa)
+        a11, a12, a22, b1, b2 = var.data_term(
+            mask, jnp.asarray(du, jnp.float32), jnp.asarray(dv, jnp.float32),
+            d, hd3, hg3)
+        b1 = var.sub_laplacian(b1, wx, s_h, s_v)
+        b2 = var.sub_laplacian(b2, wy, s_h, s_v)
+        du, dv = _sor_oracle(du, dv, *(np.asarray(x, np.float64) for x in (
+            a11, a12, a22, b1, b2, s_h, s_v)), cfg.var_ref_iter,
+            cfg.var_ref_sor_weight)
+        uu = wx + jnp.asarray(du, jnp.float32)
+        vv = wy + jnp.asarray(dv, jnp.float32)
+    ref = np.stack([np.asarray(uu), np.asarray(vv)], -1)
+    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)

@@ -1,7 +1,7 @@
 """2D-tiled variational refinement == unsharded, on the fake 8-CPU mesh.
 
 Covers SURVEY.md §2.4's "spatial axis over H x W tiles" row: per-sweep
-SOR halos now exchange both rows AND columns (VERDICT round-2 item 10).
+SOR halos exchange both rows AND columns.
 """
 
 import jax
@@ -9,12 +9,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from flowonthego_tpu.config import DISConfig
-from flowonthego_tpu.ops.variational import variational_refine
-from flowonthego_tpu.parallel.halo import (exchange_accumulate_cols,
-                                           exchange_cols)
-from flowonthego_tpu.parallel.varref_tiled2d import (make_tile_mesh,
-                                                     make_tiled_varref)
+from flowonthego.config import DISConfig
+from flowonthego.ops.variational import variational_refine
+from flowonthego.parallel.halo import (exchange_accumulate_cols,
+                                       exchange_cols)
+from flowonthego.parallel.varref_tiled2d import (make_tile_mesh,
+                                                 make_tiled_varref)
 
 
 def _problem(H=64, W=96, C=3, seed=0):
@@ -97,7 +97,7 @@ def test_exchange_accumulate_cols_total_preserved():
 @pytest.mark.parametrize("n_r,n_c", [(2, 4), (4, 2), (8, 1)])
 def test_tiled_varref_matches_unsharded(n_r, n_c):
     flow, im1, im2 = _problem()
-    cfg = DISConfig(varref_backend="xla")
+    cfg = DISConfig()
     level = 2
 
     expected = np.asarray(variational_refine(flow, im1, im2, cfg, level))
@@ -115,7 +115,7 @@ def test_tiled_varref_level0_and_small_halo_clamp():
     # level 0 (single inner iteration) and a halo that exactly covers the
     # displacement bound
     flow, im1, im2 = _problem(H=32, W=64, seed=3)
-    cfg = DISConfig(varref_backend="xla")
+    cfg = DISConfig()
     expected = np.asarray(variational_refine(flow, im1, im2, cfg, 0))
     mesh = make_tile_mesh(2, 4)
     halo = int(np.ceil(np.abs(np.asarray(flow)).max())) + 2

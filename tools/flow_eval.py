@@ -1,7 +1,7 @@
 """Compare two .flo files (average endpoint / angular error).
 
 Evaluation-methodology parity with the reference's Middlebury tooling
-(/root/reference/flow_code/C, docs/index.md:127-148):
+(flow_code/C, docs/index.md:127-148):
 
     python tools/flow_eval.py computed.flo reference.flo
 """
@@ -16,9 +16,9 @@ def main(argv):
         print(__doc__)
         return 2
     import numpy as np
-    from flowonthego_tpu.io.flo import read_flo
-    from flowonthego_tpu.utils.metrics import (average_epe, angular_error,
-                                               endpoint_error)
+    from flowonthego.io.flo import read_flo
+    from flowonthego.utils.metrics import (average_epe, angular_error,
+                                           endpoint_error)
 
     flow = read_flo(argv[0])
     gt = read_flo(argv[1])

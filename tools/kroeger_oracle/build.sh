@@ -1,15 +1,16 @@
 #!/bin/bash
 # Build the reference CPU baseline (OF_DIS by Kroeger, mirrored at
-# /root/reference/kroeger) as a numerical oracle, using our minimal Eigen shim
+# $FLOWONTHEGO_REFERENCE/kroeger) as a numerical oracle, using our minimal Eigen shim
 # (tools/kroeger_oracle/eigen_shim). Nothing from the reference tree is copied
 # into this repo; the sources are compiled in place, objects go to $BUILD_DIR.
 #
-# Usage: build.sh [BUILD_DIR]    (default /tmp/kroeger_oracle)
+# Usage: FLOWONTHEGO_REFERENCE=<upstream checkout> build.sh [BUILD_DIR]
+#        (default BUILD_DIR: build/kroeger_oracle in this repository)
 set -euo pipefail
 
-REF=/root/reference/kroeger
+REF="${FLOWONTHEGO_REFERENCE:?set FLOWONTHEGO_REFERENCE to an upstream FlowOnTheGo checkout}/kroeger"
 SHIM="$(cd "$(dirname "$0")" && pwd)/eigen_shim"
-BUILD_DIR="${1:-/tmp/kroeger_oracle}"
+BUILD_DIR="${1:-$(cd "$(dirname "$0")/../.." && pwd)/build/kroeger_oracle}"
 mkdir -p "$BUILD_DIR"
 
 OPENCV_CFLAGS=$(pkg-config --cflags opencv4)

@@ -1,15 +1,14 @@
-"""Generate a synthetic video sequence as PNG frames for end-to-end
-streaming measurements (tools/flow_stream.py).
+"""Write a generated video sequence with known ground-truth flow.
 
-The reference's bundled data tops out at 1024x436 (Sintel alley_1) and a
-single 1920x1080 still; its 4K numbers were measured on video the repo
-does not ship (docs/index.md:173-175).  This writes an N-frame 4K (or any
-size) sequence: a smooth low-frequency pattern with a constant-velocity
-crop walk, so consecutive pairs have a known translational flow and DIS
-tracks it the way it tracks real video.
+Frames come from flowonthego.utils.synth: an analytic texture moved by a
+smooth non-rigid displacement (|flow| <= --max-disp px per frame), so
+every consecutive pair has exact dense ground truth.  Writes binary PPM
+frames (no PIL needed) and, with --flo, the ground-truth .flo of each
+pair.
 
 Usage:
-    python tools/make_synth_seq.py /tmp/seq4k --frames 17 --width 3840 --height 2160
+    python tools/make_synth_seq.py seq4k --frames 17 --width 3840 --height 2160
+    python tools/flow_stream.py seq4k --op 2
 """
 
 from __future__ import annotations
@@ -23,42 +22,33 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def smooth_field(rng, h, w, c=3, waves=8, amp=26.0):
-    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
-    img = np.zeros((h, w, c), np.float32)
-    for _ in range(waves):
-        fx, fy = rng.uniform(1.0, 9.0, 2)
-        ph = rng.uniform(0, 2 * np.pi, c).astype(np.float32)
-        phase = (2 * np.pi * (fx * xx / w + fy * yy / h))[..., None]
-        img += np.sin(phase + ph).astype(np.float32) * np.float32(amp)
-    return np.clip(img + 128.0, 0, 255)
-
-
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("out_dir")
     ap.add_argument("--frames", type=int, default=17)
     ap.add_argument("--width", type=int, default=3840)
     ap.add_argument("--height", type=int, default=2160)
-    ap.add_argument("--vx", type=float, default=3.0, help="px/frame motion")
-    ap.add_argument("--vy", type=float, default=2.0)
+    ap.add_argument("--max-disp", type=float, default=5.0)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--flo", action="store_true",
+                    help="also write flow_TTTT.flo (pair t -> t+1)")
     args = ap.parse_args()
 
-    from flowonthego_tpu.io.images import save_image
+    from flowonthego.io.flo import write_flo
+    from flowonthego.io.images import save_image
+    from flowonthego.utils import synth
 
-    rng = np.random.default_rng(args.seed)
-    mx = int(abs(args.vx) * args.frames) + 1
-    my = int(abs(args.vy) * args.frames) + 1
-    base = smooth_field(rng, args.height + my, args.width + mx)
     os.makedirs(args.out_dir, exist_ok=True)
+    h, w = args.height, args.width
     for t in range(args.frames):
-        dy = int(round(abs(args.vy) * t))
-        dx = int(round(abs(args.vx) * t))
-        frame = base[dy:dy + args.height, dx:dx + args.width]
-        save_image(os.path.join(args.out_dir, f"frame_{t:04d}.png"), frame)
-        print(f"frame_{t:04d}.png  ({args.width}x{args.height}, "
-              f"shift {dx},{dy})")
+        frame = np.asarray(synth.frame(t, h, w, args.seed,
+                                       max_disp=args.max_disp))
+        save_image(os.path.join(args.out_dir, f"frame_{t:04d}.ppm"), frame)
+        if args.flo and t + 1 < args.frames:
+            write_flo(os.path.join(args.out_dir, f"flow_{t:04d}.flo"),
+                      np.asarray(synth.flow(t, h, w, args.seed,
+                                            max_disp=args.max_disp)))
+        print(f"frame_{t:04d}.ppm  ({w}x{h})")
     return 0
 
 

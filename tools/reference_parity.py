@@ -1,6 +1,7 @@
 """Full-sequence accuracy parity vs the reference CPU baseline (OF_DIS).
 
-Builds the reference CPU oracle from /root/reference/kroeger (via
+Builds the reference CPU oracle from $FLOWONTHEGO_REFERENCE/kroeger (a
+checkout of the upstream FlowOnTheGo repository; via
 tools/kroeger_oracle/build.sh + our minimal Eigen shim), runs BOTH engines
 over all 49 Sintel alley_1 frame pairs at operating point 2, and writes a
 per-frame endpoint-error table:
@@ -37,9 +38,14 @@ import numpy as np
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
-REF_IMAGES = "/root/reference/images/alley_1"
-BUNDLED_FLOW = "/root/reference/kroeger/flows/alley_0001.flo"
-ORACLE_BUILD = os.environ.get("KROEGER_ORACLE_DIR", "/tmp/kroeger_oracle")
+# A checkout of the upstream FlowOnTheGo repository (images, kroeger/).
+REFERENCE = os.environ.get("FLOWONTHEGO_REFERENCE", "")
+REF_IMAGES = os.path.join(REFERENCE, "images/alley_1")
+BUNDLED_FLOW = os.path.join(REFERENCE, "kroeger/flows/alley_0001.flo")
+ORACLE_BUILD = os.environ.get(
+    "KROEGER_ORACLE_DIR",
+    os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                 "build", "kroeger_oracle"))
 
 
 def build_oracle() -> str:
@@ -108,11 +114,11 @@ def diagnose(frames, out_dir) -> int:
     patches, warp error comparable) from a systematic bias (error spread
     wide or warp error clearly worse).
     """
-    from flowonthego_tpu.config import operating_point
-    from flowonthego_tpu.io.color import flow_to_color
-    from flowonthego_tpu.io.flo import read_flo
-    from flowonthego_tpu.io.images import load_image, save_image
-    from flowonthego_tpu.models.dis_flow import compute_flow
+    from flowonthego.config import operating_point
+    from flowonthego.io.color import flow_to_color
+    from flowonthego.io.flo import read_flo
+    from flowonthego.io.images import load_image, save_image
+    from flowonthego.models.dis_flow import compute_flow
 
     binary = build_oracle()
     for i in frames:
@@ -166,11 +172,11 @@ def main() -> int:
     if args.diagnose:
         return diagnose(args.diagnose, args.out_dir)
 
-    from flowonthego_tpu.config import operating_point
-    from flowonthego_tpu.io.flo import read_flo
-    from flowonthego_tpu.io.images import load_image
-    from flowonthego_tpu.models.dis_flow import compute_flow
-    from flowonthego_tpu.utils.metrics import average_epe
+    from flowonthego.config import operating_point
+    from flowonthego.io.flo import read_flo
+    from flowonthego.io.images import load_image
+    from flowonthego.models.dis_flow import compute_flow
+    from flowonthego.utils.metrics import average_epe
 
     binary = build_oracle()
 
@@ -242,7 +248,7 @@ def main() -> int:
         "Both engines run operating point 2 on all Sintel `alley_1` frame "
         "pairs (1024x436 RGB).",
         "The oracle is the reference CPU baseline "
-        "(`/root/reference/kroeger`, OF_DIS by Kroeger et al.), compiled "
+        "(upstream `kroeger/`, OF_DIS by Kroeger et al.), compiled "
         "locally via `tools/kroeger_oracle/build.sh`.",
         "EPE is endpoint error between our flow and the oracle's flow; "
         "normalized = EPE / mean |oracle flow| for that frame.",

@@ -4,11 +4,11 @@ Real multi-chip hardware is not available in this environment, so this
 tool does what CAN be validated without it: it compiles the sharded
 programs for an N-device mesh, extracts every collective op XLA emitted
 (kind, shape, bytes), and reports per-frame communication volume next to
-per-frame compute traffic.  Scaling efficiency on ICI follows directly:
+per-frame compute traffic.  Scaling efficiency follows directly:
 the data-parallel path emits ZERO collectives (embarrassingly parallel
 over frames), and the spatially-sharded path's halo traffic is a few
 hundred KB per frame against ~100 MB of local memory traffic — far
-below what ICI (~100+ GB/s/link) makes visible.
+below what the interconnect makes visible.
 
 Run with a fake CPU mesh:
   XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \
@@ -77,11 +77,11 @@ def main():
               f"JAX_PLATFORMS=cpu")
         return 1
 
-    from flowonthego_tpu.config import operating_point
-    from flowonthego_tpu.parallel import make_data_parallel_flow
-    from flowonthego_tpu.parallel.mesh import make_mesh
-    from flowonthego_tpu.parallel.spatial import make_spatial_flow
-    from flowonthego_tpu.parallel.spatial_fine import make_fine_spatial_flow
+    from flowonthego.config import operating_point
+    from flowonthego.parallel import make_data_parallel_flow
+    from flowonthego.parallel.mesh import make_mesh
+    from flowonthego.parallel.spatial import make_spatial_flow
+    from flowonthego.parallel.spatial_fine import make_fine_spatial_flow
 
     cfg = operating_point(2, width=W)
     rng = np.random.default_rng(0)
@@ -120,7 +120,7 @@ def main():
     # (at op point 2's tiny fine scales the strips fall below the halo
     #  requirement and the engine falls back to replicate-coarse; with
     #  finest_scale=1 at full HD height the halo machinery engages)
-    from flowonthego_tpu.config import DISConfig
+    from flowonthego.config import DISConfig
     n_sp = min(n_dev, 4)
     mesh_f = make_mesh(n_data=1, n_space=n_sp,
                        devices=jax.devices()[:n_sp])
@@ -137,7 +137,7 @@ def main():
           "(linear in chips for streamed video); the spatial axis moves "
           "only halo strips + small replicated coarse fields per frame — "
           "a fraction of a percent of local HBM traffic, i.e. invisible "
-          "next to compute on ICI-connected chips and still cheap on DCN.")
+          "next to compute on connected devices.")
     return 0
 
 
